@@ -149,26 +149,14 @@ class Camera:
         """[16] f32 kernel operand: [origin(3), u(3), v(3), w(3),
         half_width, half_height, lens_radius, focus_dist].
 
-        THE canonical layout every Pallas kernel reads its camera from
-        (pallas_render, mxu_render, replay_grad) and that
-        `unpack_cotangent` inverts — keep the two in lockstep."""
+        The layout the fused trace kernel (`kernels/trace_gpu.py`) reads
+        its camera from."""
         return jnp.concatenate([
             self.origin.reshape(-1), self.u.reshape(-1),
             self.v.reshape(-1), self.w.reshape(-1),
             self.half_width.reshape(-1), self.half_height.reshape(-1),
             self.lens_radius.reshape(-1), self.focus_dist.reshape(-1),
         ]).astype(jnp.float32)
-
-    def unpack_cotangent(self, d16):
-        """[16] packed cotangents (pack()'s layout) -> a Camera-shaped
-        cotangent pytree matching this camera's leaf shapes."""
-        return Camera(
-            origin=d16[0:3], u=d16[3:6], v=d16[6:9], w=d16[9:12],
-            half_width=d16[12].reshape(jnp.shape(self.half_width)),
-            half_height=d16[13].reshape(jnp.shape(self.half_height)),
-            lens_radius=d16[14].reshape(jnp.shape(self.lens_radius)),
-            focus_dist=d16[15].reshape(jnp.shape(self.focus_dist)),
-        )
 
     # -- ray generation -----------------------------------------------------
 

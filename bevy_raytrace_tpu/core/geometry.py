@@ -4,19 +4,20 @@ Replaces `assets/shaders/intersect.wgsl:94-143`: the RTiOW half-b quadratic
 per sphere, near-then-far root selection against [t_min, t_max], outward
 normal `(p - c)/r`, front-face flip, material id carry, and a brute-force
 scan over all spheres ("The world isn't partitioned in any way",
-`intersect.wgsl:132-143` — no BVH, same here: RTiOW scenes are ~500 spheres
-and a dense [rays, spheres] sweep is exactly what the TPU wants).
+`intersect.wgsl:132-143` — no BVH, same here: RTiOW scenes are ~500
+spheres).
 
-TPU-first formulation: instead of a per-thread loop over spheres, the whole
-[R, N] test matrix is expressed so its two inner products are [R,3]x[3,N]
-matmuls (MXU) and everything else is fused elementwise (VPU):
+This is the plain-XLA formulation, the reference every fast path is tested
+against.  Instead of a per-thread loop over spheres, the whole [R, N] test
+matrix is expressed through two [R, N] inner-product planes and
+elementwise work:
 
-    half_b[r,n] = (o_r - c_n) . d_r = (o_r . d_r)      - (d @ C^T)[r,n]
-    c_q   [r,n] = |o_r|^2 - 2 (o @ C^T)[r,n] + (|c_n|^2 - rad_n^2)
+    half_b[r,n] = (o_r - c_n) . d_r = (o_r . d_r)   - (d_r . c_n)
+    c_q   [r,n] = |o_r|^2 - 2 (o_r . c_n) + (|c_n|^2 - rad_n^2)
 
-The nearest hit is a masked min + argmin over the sphere axis — the
-reduction fuses with its producers, so the [R,N] workspace is bounded by
-the two matmul outputs; callers bound R via RenderConfig.ray_chunk.
+The nearest hit is a masked min + argmin over the sphere axis; callers
+bound R via RenderConfig.ray_chunk.  The fused GPU kernel
+(`kernels/trace_gpu.py`) loops over spheres per ray instead.
 
 Differentiability: `t` is smooth in (origin, dir, centers, radii) on the
 interior of each hit region; the argmin/root-choice/hit masks are piecewise
@@ -29,7 +30,6 @@ poison gradients with NaNs.
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from bevy_raytrace_tpu.core.types import Hit, Ray, Scene
@@ -46,121 +46,15 @@ def intersect_scene(ray: Ray, scene: Scene, t_min: float, t_max: float) -> Hit:
     """
     table = sphere_table(scene.centers, scene.radii, scene.materials,
                          scene.material_id)
-    hit, _, _, _, _ = intersect_scene_fused(ray, scene, t_min, t_max, table)
+    hit = intersect_scene_fused(ray, scene, t_min, t_max, table)[0]
     return hit
 
 
-@jax.custom_vjp
 def gather_rows(tbl, idx):
-    """tbl[idx] with an MXU-shaped transpose.
-
-    The default transpose of a row gather is a scatter-add of R updates
-    into the small per-sphere table — slow on TPU.  This VJP accumulates
-    the cotangents with an exact f32 one-hot matmul ([S, R] @ [R, C] on
-    the MXU) instead; products with a 0/1 one-hot are exactly the
-    incoming cotangents (3 exact bf16 limb passes — see
-    _gather_rows_bwd), so this matches the scatter-add up to summation
-    order.  Measured on v5e: the residual-replay gradient step went
-    3.15M -> 4.1M paths/s from this transpose alone.
-
-    Note: as a custom_vjp primitive this supports reverse-mode AD only;
-    forward-mode (jax.jvp / jax.hessian through the renderer) is not
-    part of the supported surface (BASELINE needs grad, not jvp).
-    """
+    """tbl[idx]: the per-bounce winner-row gather.  Its transpose is XLA's
+    scatter-add into the small per-sphere table (atomics on the GPU, so
+    the order of the summed cotangents varies from run to run)."""
     return tbl[idx]
-
-
-def _gather_rows_fwd(tbl, idx):
-    return tbl[idx], (idx, tbl.shape[0])
-
-
-def _trunc_top8(v):
-    """Keep the top 8 mantissa bits of f32 (exactly bf16-representable).
-
-    Integer masking, NOT a bf16 round-trip: under TPU XLA's
-    --xla_allow_excess_precision=true the round-trip `v - f32(bf16(v))`
-    may legally fold to zero (same hazard the mxu kernel's limb split
-    documents)."""
-    bits = jax.lax.bitcast_convert_type(v, jnp.int32)
-    return jax.lax.bitcast_convert_type(bits & np.int32(~0xFFFF),
-                                        jnp.float32)
-
-
-def split_bf16_limbs(v):
-    """f32 -> three exactly-bf16-representable f32 limbs, hi+mid+lo == v
-    bit-for-bit.
-
-    THE shared limb splitter for every exact-bf16-MXU trick in the tree
-    (the gather transpose below, the v3 kernel's attribute tables, the
-    replay-gradient kernel's cotangent contraction): products of an
-    exact 0/1 one-hot with bf16 limbs are exact and f32 = hi+mid+lo
-    reassembles exactly.  Must stay integer-masked (see _trunc_top8's
-    excess-precision note); safe to call inside Pallas kernels."""
-    hi = _trunc_top8(v)
-    r1 = v - hi
-    mid = _trunc_top8(r1)
-    lo = r1 - mid
-    return hi, mid, lo
-
-
-# The one-hot transpose materializes an [R_chunk, S] bf16 operand; cap it
-# (default ~64 MB per chunk) so full-resolution gradients (R ~ 1M rays)
-# never hold a ~1 GB one-hot per bounce residual (same memory-bounding
-# spirit as fast_grad._REMAT_BYTES).  Chunks accumulate in f32 —
-# identical to the unchunked matmul up to summation order.
-# Configurable (ADVICE/VERDICT r4 hygiene): env BRT_ONEHOT_CHUNK_MB at
-# import, or set_onehot_chunk_mb() before tracing (larger = fewer, bigger
-# matmuls; smaller = tighter transient-memory bound).
-import os as _os
-
-_ONEHOT_ELEMS = (int(_os.environ.get("BRT_ONEHOT_CHUNK_MB", "64"))
-                 * 1024 * 1024 // 2)  # bf16 elements
-
-
-def set_onehot_chunk_mb(mb: int) -> None:
-    """Set the gather-transpose one-hot chunk budget (MB of bf16).
-
-    Takes effect at the next trace of a gradient through `gather_rows`;
-    already-compiled functions keep the cap they were traced with."""
-    global _ONEHOT_ELEMS
-    if mb <= 0:
-        raise ValueError(f"chunk budget must be positive, got {mb} MB")
-    _ONEHOT_ELEMS = mb * 1024 * 1024 // 2
-
-
-def _gather_rows_bwd(saved, g):
-    idx, s_rows = saved
-    # bf16 one-hot (exact 0/1) x 3 exact bf16 limbs of g: each product is
-    # exact, f32 accumulation is exact, hi+mid+lo reassembles g exactly —
-    # full f32 cotangents in 3 bf16 MXU passes.  A plain f32 dot at
-    # default precision would silently run as bf16 on TPU (rounding every
-    # cotangent to ~8 mantissa bits), and Precision.HIGHEST costs 6
-    # passes over the large one-hot operand.
-    rows = jnp.arange(s_rows, dtype=idx.dtype)[None, :]
-    r_total = idx.shape[0]
-    r_chunk = max(_ONEHOT_ELEMS // max(s_rows, 1), 1)
-
-    def partial(idx_c, g_c):
-        onehot = (idx_c[:, None] == rows).astype(jnp.bfloat16)  # [Rc, S]
-        hi, mid, lo = split_bf16_limbs(g_c)
-        acc = None
-        for limb in (hi, mid, lo):
-            part = jnp.dot(onehot.T, limb.astype(jnp.bfloat16),
-                           preferred_element_type=jnp.float32)
-            acc = part if acc is None else acc + part
-        return acc
-
-    if r_total <= r_chunk:
-        return (partial(idx, g), None)
-    d_tbl = None
-    for lo_r in range(0, r_total, r_chunk):
-        sl = slice(lo_r, min(lo_r + r_chunk, r_total))
-        part = partial(idx[sl], g[sl])
-        d_tbl = part if d_tbl is None else d_tbl + part
-    return (d_tbl, None)
-
-
-gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
 
 
 def sphere_table(centers, radii, materials, material_id):
@@ -168,11 +62,9 @@ def sphere_table(centers, radii, materials, material_id):
     [cx, cy, cz, r, albedo_rgb, kind, fuzz, ior, material_id].
 
     One `gather_rows` per bounce replaces seven separate winner gathers
-    (centers/radius/material id + 4 material params) — XLA's TPU
-    row-gather cost is per gather op; fusing them measured the replay
-    forward 5.1x faster (inverse/fast_grad.py) and speeds this module's
-    wavefront path identically.  Gradients flow back through the build
-    (its transpose scatters into the small [S, ...] source arrays)."""
+    (centers/radius/material id + 4 material params).  Gradients flow
+    back through the build (its transpose scatters into the small
+    [S, ...] source arrays)."""
     return jnp.concatenate([
         centers,
         radii[:, None],
@@ -186,44 +78,42 @@ def sphere_table(centers, radii, materials, material_id):
     ], axis=1)
 
 
+def dot_planes(d, o, c):
+    """The [R, N] inner-product planes (d . c_n, o . c_n) as elementwise
+    products summed over xyz: true f32 by construction, where a K=3
+    matmul runs in TF32 at the GPU's default precision and is slower at
+    HIGHEST (PERF.md)."""
+    return (jnp.sum(d[:, None, :] * c[None, :, :], axis=-1),
+            jnp.sum(o[:, None, :] * c[None, :, :], axis=-1))
+
+
 def intersect_scene_fused(ray: Ray, scene: Scene, t_min: float, t_max: float,
                           table, with_second: bool = False):
     """`intersect_scene` + material gather in ONE winner-row gather.
 
     `table` is `sphere_table(...)` built once per render (hoisted out of
     the bounce scan).  Returns (Hit, albedo [R,3], kind [R], fuzz [R],
-    ior [R]); forward values are bit-identical to
-    `intersect_scene` + `scene.gather_material`.
+    ior [R], idx [R]); idx is the winner's row (meaningful where
+    hit.hit).  Forward values are bit-identical to `intersect_scene` +
+    `scene.gather_material`.
 
     `with_second=True` appends (hit2 [R] bool, albedo2 [R,3], idx2 [R]):
     the nearest hit EXCLUDING the winner sphere — the surface revealed
     when the winner's silhouette retreats, which the two-sided soft-
     silhouette boundary term uses as the background radiance estimate
-    (VERDICT r3 item 3; one extra argmin over the already-computed [R,N]
-    t matrix plus one gather).
+    (one extra argmin over the already-computed [R,N] t matrix plus one
+    gather).
 
-    Tie semantics vs the v1 kernel (ADVICE r4): this path excludes the
-    winner by COLUMN INDEX, so a distinct sphere at exactly the winner's
-    t still qualifies as runner-up; the fused kernel
-    (`kernels/pallas_render.py`) excludes exact t-TIES instead (so a
-    cluster-pad duplicate of the winner can never become its own twin's
-    "background").  The two runner-ups differ only on exact-tie
-    geometry — measure-zero, gradient-only (the boundary term is itself
-    an O(edge_softness) estimate there).
+    Ties: the runner-up excludes the winner by COLUMN INDEX, so a
+    distinct sphere at exactly the winner's t still qualifies; the fused
+    kernel's streaming runner-up has the same semantics.
     """
     o = ray.origin  # [R,3]
     d = ray.dir  # [R,3]
     c = scene.centers  # [N,3]
     rad = scene.radii  # [N]
 
-    # MXU-friendly inner products.  precision=HIGHEST forces true-f32
-    # multiplication: TPU matmuls default to bf16 inputs, whose ~8 lost
-    # mantissa bits put 1e-2-scale errors on hit distances (measured as
-    # 28% of pixels off vs the exact-f32 Pallas kernel).  K=3, so the
-    # extra MXU passes are free.
-    highest = jax.lax.Precision.HIGHEST
-    d_dot_c = jnp.matmul(d, c.T, precision=highest)  # [R,N]
-    o_dot_c = jnp.matmul(o, c.T, precision=highest)  # [R,N]
+    d_dot_c, o_dot_c = dot_planes(d, o, c)  # [R,N] each
     o_dot_d = jnp.sum(o * d, axis=-1, keepdims=True)  # [R,1]
     o2 = jnp.sum(o * o, axis=-1, keepdims=True)  # [R,1]
     a = jnp.sum(d * d, axis=-1, keepdims=True)  # [R,1] (1 for unit dirs)
@@ -263,8 +153,7 @@ def intersect_scene_fused(ray: Ray, scene: Scene, t_min: float, t_max: float,
     # overflow to inf/NaN — harmless in a masked forward pass but fatal to
     # gradients (0 * NaN in the where-VJP).  Dead lanes instead report the
     # ray origin and a fixed unit normal; the wavefront masks them out
-    # (the TPU analog of the reference's in-band dead-ray sentinel,
-    # `intersect.wgsl:154`).
+    # (the reference's in-band dead-ray sentinel, `intersect.wgsl:154`).
     t_safe = jnp.where(hit, t, 0.0)
     point = o + t_safe[:, None] * d
     # Outward normal (p - c)/r — negative radius flips it (hollow glass).
@@ -296,7 +185,7 @@ def intersect_scene_fused(ray: Ray, scene: Scene, t_min: float, t_max: float,
         material=material,
         hit=hit,
         edge_m2=edge_m2,
-    ), albedo, kind, fuzz, ior
+    ), albedo, kind, fuzz, ior, idx
     if not with_second:
         return out
     # Runner-up: nearest hit with the winner SPHERE excluded (its far

@@ -17,9 +17,9 @@ Replaces `assets/shaders/shade.wgsl`:
 - Sky gradient miss shading (`shade.wgsl:189-197`):
   lerp(white, (0.5,0.7,1.0), 0.5*(dir.y + 1)).
 
-TPU-first: the 3-way material branch (`shade.wgsl:240-252`) is the MoE-like
-dispatch SURVEY.md §2.3 calls out — on TPU all three scatter models are
-computed densely for every lane and combined with `jnp.where` by material
+Branch-free: the 3-way material branch (`shade.wgsl:240-252`) is the
+MoE-like dispatch SURVEY.md §2.3 calls out — here all three scatter models
+are computed densely for every lane and combined with `jnp.where` by material
 kind (branch-free; no routing, no divergence).
 
 Gradients: scatter directions and attenuations are differentiable w.r.t.

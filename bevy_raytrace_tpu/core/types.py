@@ -17,7 +17,7 @@ These replace the reference's hand-laid-out GPU buffers:
              index_of_refraction}` (reference
              `src/ray_trace_materials.rs:33-43`) as structure-of-arrays.
 
-Everything is float32 (TPU VPU-native) / int32, batched on the leading axis.
+Everything is float32 / int32, batched on the leading axis.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ class Scene:
     RTiOW hollow-glass trick), material_id [N] int32, materials: Materials.
 
     The scene is a plain pytree argument of the jitted render step, which
-    is the TPU-native form of the reference's per-frame re-upload path that
+    is this framework's form of the reference's per-frame re-upload path that
     makes sphere transforms live-editable (`src/sphere.rs:180-197`).
     """
 

@@ -1,35 +1,35 @@
-"""Fast differentiable rendering: Pallas forward + residual-replay backward.
+"""Fast differentiable rendering: recorded forward + replay backward.
 
 The XLA wavefront (`wavefront/render.py`) is differentiable but pays the
-dense [rays, spheres] intersection sweep in BOTH directions — it is the
-whole cost of `jax.value_and_grad(render)` (VERDICT r1 item 2: ~2M rays/s
-while the forward Pallas kernel does >25M).  This module removes the sweep
-from the backward pass entirely:
+dense [rays, spheres] intersection sweep in BOTH directions.  This module
+removes the sweep from the backward pass entirely:
 
-  forward   — the fused Pallas kernel (`kernels/pallas_render.py`) with
-              `with_residuals=True`: alongside the image it records, per
+  forward   — a recording render: alongside the image it records, per
               (sample, bounce, pixel), the winning sphere index (-1 for
-              miss) — a compact checkpoint of every discrete choice the
-              sampled paths made (int32; ~4 bytes x spp x depth x pixels).
+              miss) — a compact int16 checkpoint of every discrete choice
+              the sampled paths made.  `forward="pallas"` records with
+              the fused GPU kernel (`kernels/trace_gpu.py`);
+              `forward="xla"` with the XLA wavefront's recorder
+              (`wavefront.render_record`), the plain reference.
 
-  backward  — `replay_image` re-traces every path in plain differentiable
-              jnp WITHOUT any nearest-hit search: the winner is read from
-              the residual, its exact `t` recomputed in closed form, and
-              the same PCG4D counters replay the same random numbers.
-              `jax.vjp` of the replay then yields scene/camera cotangents.
+  backward  — `replay_pixel_range` re-traces every path in plain
+              differentiable jnp WITHOUT any nearest-hit search: the
+              winner is read from the residual, its exact `t` recomputed
+              in closed form, and the same PCG4D counters replay the same
+              random numbers.  `jax.vjp` of the replay then yields
+              scene/camera cotangents.
 
 Gradient semantics follow the same straight-through policy as the XLA
 path (discrete events — argmin winner, hit/miss, root choice, material
 branch, Schlick Bernoulli — are frozen at their sampled values; continuous
 quantities differentiate through), including the `edge_softness` soft-
-silhouette boundary term, which only involves the HIT sphere
-(`core/geometry.py:104-113`) and therefore needs no extra residuals.
-Agreement with jax.grad of the XLA wavefront is exact (to f32) on
-well-conditioned scenes; near-tangency paths — whose d(t)/d(theta) ~
-1/sqrt(disc) diverges — may resolve their discrete flips differently
-between backends, so on grazing-heavy scenes the two estimators agree on
-the bulk of components while outlier tails differ (both are legitimate;
-tests/test_fast_grad.py quantifies).
+silhouette boundary term, whose background estimate comes from the
+recorded runner-up.  Agreement with jax.grad of the XLA wavefront is
+exact (to f32) on well-conditioned scenes; near-tangency paths — whose
+d(t)/d(theta) ~ 1/sqrt(disc) diverges — may resolve their discrete flips
+differently between backends, so on grazing-heavy scenes the two
+estimators agree on the bulk of components while outlier tails differ
+(both are legitimate; tests/test_fast_grad.py quantifies).
 
 This mirrors the reference's wavefront state handoff (`ray_trace_rays.rs`
 ray buffer carrying per-bounce state between dispatch rounds,
@@ -38,8 +38,6 @@ than a live queue.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import jax
@@ -50,7 +48,12 @@ from bevy_raytrace_tpu.core.geometry import gather_rows, sphere_table
 from bevy_raytrace_tpu.core.materials import scatter, sky_color
 from bevy_raytrace_tpu.core.types import Ray
 from bevy_raytrace_tpu.rng.pcg import uniform4
-from bevy_raytrace_tpu.wavefront.render import CAMERA_STREAM, FRAME_MIX
+from bevy_raytrace_tpu.wavefront.render import (
+    CAMERA_STREAM,
+    frame_seed,
+    render_pixel_range,
+)
+
 
 _UNIT_Z = np.array([0.0, 0.0, 1.0], np.float32)
 
@@ -62,10 +65,10 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids,
     Scene cotangents flow exclusively through `tbl` (built by the
     caller from the scene; there is no separate scene argument).
 
-    res_db: int16/int32 [max_depth, K] winner sphere index per bounce (-1 miss);
-    indices refer to rows of `tbl` (`core.geometry.sphere_table`, in the
-    kernel's possibly cluster-permuted sphere order).  RNG counters are identical
-    to the forward kernel's, so the replayed path IS the sampled path.
+    res_db: int16 [max_depth, K] winner sphere index per bounce (-1 miss);
+    indices refer to rows of `tbl` (`core.geometry.sphere_table`).  RNG
+    counters are identical to the recording forward's, so the replayed
+    path IS the sampled path.
 
     res2_db: runner-up sphere index per bounce (-1 = none), required when
     config.edge_softness > 0 — the TWO-SIDED boundary term's background
@@ -76,7 +79,7 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids,
     if config.edge_softness > 0.0 and res2_db is None:
         raise ValueError(
             "edge_softness > 0 requires runner-up residuals (res2) — "
-            "record the forward with record_second=True")
+            "record the forward's runner-up as well")
     cu1, cu2, cu3, cu4 = uniform4(pixel_ids, sample_ids, CAMERA_STREAM, seed)
     x = (pixel_ids % config.width).astype(jnp.float32)
     y = (pixel_ids // config.width).astype(jnp.float32)
@@ -94,7 +97,7 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids,
             sidx2 = sidx2.astype(jnp.int32)
         else:
             bounce_idx, sidx = xs
-        sidx = sidx.astype(jnp.int32)  # residuals may arrive int16 (r5)
+        sidx = sidx.astype(jnp.int32)
         ray, throughput, radiance, alive = carry
         o, d = ray.origin, ray.dir
         hit = (sidx >= 0) & alive
@@ -102,19 +105,17 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids,
         c = g[:, 0:3]
         r = g[:, 3]
 
-        # Exact nearest t of the recorded winner, centered quadratic —
-        # identical formula to the kernel's recompute
-        # (kernels/mxu_render.py "Exact nearest-t recompute").
+        # Exact nearest t of the recorded winner, centered quadratic.
         oc = o - c
         hb = jnp.sum(oc * d, axis=-1)
         oc2 = jnp.sum(oc * oc, axis=-1)
         cq = oc2 - r * r
         disc = hb * hb - cq
         # Double-where sqrt guard, TWO hazards (not just masked misses):
-        # the kernel recorded `hit` under Mosaic's fma contraction, so a
+        # the forward recorded `hit` under its own fma contraction, so a
         # tangency-grazing winner can REPLAY with disc <= 0 here even
-        # though the kernel saw disc > 0.  sqrt'(0)=inf would then NaN
-        # every gradient (observed compiled-on-TPU, r3).  Flipped lanes
+        # though the forward saw disc > 0.  sqrt'(0)=inf would then NaN
+        # every gradient.  Flipped lanes
         # take value sq=0 (t = -hb, the tangent point) with zero gradient
         # through sq — the physically unbounded tangency derivative is
         # straight-through dropped, matching the XLA path's policy of
@@ -184,97 +185,107 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids,
     return radiance
 
 
-# Above this many stored bounce-state bytes the replay scan is
-# rematerialized (checkpoint) instead of stored; below, storing is ~36%
-# faster end-to-end (measured on v5e at 400x300x16spp).  ~40 f32 of live
-# state per path per bounce.
+# Above this many stored bounce-state bytes the replay is rematerialized
+# (checkpointed) instead of stored.  ~40 f32 of live state per path per
+# bounce.
 _REMAT_BYTES = 4 << 30
 
 
-def replay_image(scene, camera, config: RenderConfig, res, frame=0,
-                 sphere_perm=None, remat=None, res2=None):
-    """Differentiable image from recorded residuals -> [H, W, 3].
+def replay_pixel_range(tbl, camera, config: RenderConfig, res, pixel_start,
+                       num_local: int, frame=0, remat=None, res2=None):
+    """Differentiable radiance of recorded paths -> flat [num_local, 3].
 
-    res: int32 [spp, max_depth, P] with P >= num_pixels (lane padding is
-    sliced off).  `sphere_perm` maps residual slot indices to scene rows
-    when the forward ran cluster-permuted.  `remat`: None = checkpoint
-    the bounce scan only when storing its state would exceed
-    _REMAT_BYTES; True/False forces.  `res2`: runner-up residuals,
-    required when config.edge_softness > 0 (two-sided boundary term).
+    res: int16 [spp, max_depth, P] with P >= num_local (padding is sliced
+    off), stripe-local: column i is absolute pixel `pixel_start + i`
+    (`pixel_start` may be traced, e.g. a mesh rank times the stripe).
+    `tbl` is `core.geometry.sphere_table` of the scene; cotangents of the
+    scene flow through it.  `remat`: None = checkpoint each sample's
+    replay when storing every sample's bounce state would exceed
+    _REMAT_BYTES, and also its bounce scan when one sample's would;
+    True/False forces both.  `res2`: runner-up residuals, required when
+    config.edge_softness > 0 (two-sided boundary term).
     """
-    num_pixels = config.num_pixels
+    per_sample_bytes = config.max_depth * num_local * 40 * 4
     if remat is None:
-        est = (config.samples_per_pixel * config.max_depth
-               * num_pixels * 40 * 4)
-        remat = est > _REMAT_BYTES
-    with np.errstate(over="ignore"):
-        seed = np.uint32(config.seed) + np.uint32(FRAME_MIX) * (
-            np.uint32(frame) if isinstance(frame, int)
-            else frame.astype(jnp.uint32))
-
-    centers = scene.centers
-    radii = scene.radii
-    mat_id = scene.material_id
-    if sphere_perm is not None:
-        centers = centers[sphere_perm]
-        radii = radii[sphere_perm]
-        mat_id = mat_id[sphere_perm]
-    tbl = sphere_table(centers, radii, scene.materials, mat_id)
-
-    pixel_ids = np.arange(num_pixels, dtype=np.uint32)
-    res_p = res[:, :, :num_pixels]
-    xs = (np.arange(config.samples_per_pixel, dtype=np.uint32), res_p)
+        remat_sample = (config.samples_per_pixel * per_sample_bytes
+                        > _REMAT_BYTES)
+        remat_bounce = per_sample_bytes > _REMAT_BYTES
+    else:
+        remat_sample = remat_bounce = remat
+    seed = frame_seed(config, frame)
+    local_ids = np.arange(num_local, dtype=np.uint32)
+    if isinstance(pixel_start, (int, np.integer)):
+        pixel_ids = local_ids + np.uint32(pixel_start)
+    else:
+        pixel_ids = pixel_start.astype(jnp.uint32) + local_ids
+    xs = (np.arange(config.samples_per_pixel, dtype=np.uint32),
+          res[:, :, :num_local])
     if res2 is not None:
-        xs = xs + (res2[:, :, :num_pixels],)
+        xs = xs + (res2[:, :, :num_local],)
 
     def per_sample(fb_sum, xs):
         s_id, res_s = xs[0], xs[1]
         res2_s = xs[2] if len(xs) > 2 else None
-        rad = replay_paths(camera, config, pixel_ids,
-                           s_id, seed, res_s, tbl, remat=remat,
-                           res2_db=res2_s)
+        rad = replay_paths(camera, config, pixel_ids, s_id, seed, res_s, tbl,
+                           remat=remat_bounce, res2_db=res2_s)
         return fb_sum + rad, None
 
     fb, _ = jax.lax.scan(
-        per_sample,
-        jnp.zeros((num_pixels, 3), jnp.float32),
-        xs,
-    )
-    fb = fb / np.float32(config.samples_per_pixel)
+        jax.checkpoint(per_sample) if remat_sample else per_sample,
+        jnp.zeros((num_local, 3), jnp.float32), xs)
+    return fb / np.float32(config.samples_per_pixel)
+
+
+def scene_table(scene):
+    """The replay's [S, 11] sphere table of `scene`."""
+    return sphere_table(scene.centers, scene.radii, scene.materials,
+                        scene.material_id)
+
+
+def replay_image(scene, camera, config: RenderConfig, res, frame=0,
+                 remat=None, res2=None):
+    """Differentiable image from recorded residuals -> [H, W, 3]
+    (`replay_pixel_range` over the whole frame)."""
+    fb = replay_pixel_range(scene_table(scene), camera, config, res, 0,
+                            config.num_pixels, frame, remat, res2)
     return fb.reshape(config.height, config.width, 3)
 
 
-def _zero_cotangent(x):
+def zero_cotangent(x):
     arr = jnp.asarray(x)
     if jnp.issubdtype(arr.dtype, jnp.floating):
         return jnp.zeros_like(arr)
     return np.zeros(np.shape(x), dtype=jax.dtypes.float0)
 
 
-def _permuted_table(scene, sphere_perm):
-    """sphere_table in the kernel's (possibly cluster-permuted) order."""
-    centers = scene.centers
-    radii = scene.radii
-    mat_id = scene.material_id
-    if sphere_perm is not None:
-        centers = centers[sphere_perm]
-        radii = radii[sphere_perm]
-        mat_id = mat_id[sphere_perm]
-    return sphere_table(centers, radii, scene.materials, mat_id)
+def recorder(config: RenderConfig, forward: str = "pallas",
+             interpret: bool = False):
+    """`record(scene, camera, frame, pixel_base, num_local) -> (flat
+    [num_local, 3] stripe, res[, res2])` for the chosen forward:
+    "pallas" (the fused GPU kernel) or "xla" (the wavefront recorder)."""
+    if forward not in ("pallas", "xla"):
+        raise ValueError(
+            f"unknown forward {forward!r}; expected 'pallas' or 'xla'")
+    record_second = config.edge_softness > 0.0
+    if forward == "xla":
+        def record(scene, camera, frame, pixel_base, num_local):
+            return render_pixel_range(scene, camera, config, pixel_base,
+                                      num_local, frame, record=True)
+        return record
+    from bevy_raytrace_tpu.kernels.trace_gpu import render_pallas
+
+    def record(scene, camera, frame, pixel_base, num_local):
+        return render_pallas(scene, camera, config, frame,
+                             interpret=interpret, with_residuals=True,
+                             record_second=record_second,
+                             pixel_base=pixel_base, num_local=num_local)
+    return record
 
 
-def _camera_cotangent(camera, d_cam):
-    """[16] packed camera cotangents -> a Camera-shaped pytree
-    (the inverse of Camera.pack's canonical kernel-operand layout)."""
-    return camera.unpack_cotangent(d_cam)
-
-
-def make_fast_renderer(config: RenderConfig, tile_rows=None, unroll=None,
-                       clusters=None, interpret: bool = False, remat=None,
-                       backward: str = "kernel", grad_spp_chunk: int = 0,
-                       forward: str = "pallas"):
+def make_fast_renderer(config: RenderConfig, forward: str = "pallas",
+                       interpret: bool = False, remat=None):
     """A differentiable `render(scene, camera, frame) -> image` whose
-    forward is the fused Pallas kernel and whose backward replays the
+    forward is a recording render and whose backward replays the
     recorded paths (no sphere sweep).
 
     Use under `jax.jit` / `jax.grad` exactly like `wavefront.render`
@@ -282,164 +293,33 @@ def make_fast_renderer(config: RenderConfig, tile_rows=None, unroll=None,
     (tests/test_fast_grad.py): exactly on well-conditioned scenes; on
     grazing-heavy scenes the bulk of components agrees while the
     near-tangency outlier tail differs between backends (both are
-    legitimate straight-through estimates — see
-    test_fast_grads_rtiow_bulk_agreement).
+    legitimate straight-through estimates).
 
-    `backward`: "kernel" (default) runs the fused Pallas replay-gradient
-    kernel (`kernels/replay_grad.py` — forward replay AND cotangent
-    accumulation in one program, no HBM bounce state); "xla" replays in
-    differentiable jnp and lets `jax.vjp` transpose it (the oracle the
-    kernel is tested against).
-
-    `remat` (backward="xla" only): None = checkpoint the replay's bounce
-    scan only above a memory threshold (storing is ~36% faster when it
-    fits).
-
-    `grad_spp_chunk` (backward="kernel" only): > 0 bounds the residual
-    checkpoint to `grad_spp_chunk` samples at a time — the forward pass
-    records NO residuals (value only); the backward re-renders each
-    sample chunk with residuals and runs the replay-gradient kernel per
-    chunk, accumulating cotangents.  Gradients equal the unchunked
-    kernel's up to f32 summation order; the cost is one extra forward
-    render spread across the backward.  This is what makes full-spp
-    flagship gradients (1200x800x256spp: a 7.9 GB residual checkpoint
-    unchunked) fit in memory.
-
-    `forward`: "pallas" (default) records with the v1 per-sphere-loop
-    kernel (cluster-cullable, any scene size); "sweep" records with the
-    dense-sweep recorder (`kernels/sweep_record.py`, r5 — the v3
-    intersection machinery under an aligned-store schedule; <= 1024
-    sphere slots, no cluster plans).  Measured on the 486-sphere
-    flagship the sweep recorder is SLOWER (17.9M vs 24.7M paths/s —
-    straggler cost of the plain schedule; BENCHMARKS.md), so the
-    default stays "pallas"; the option remains for scene shapes where
-    the dense sweep wins.  The replay/backward is identical either way.
+    `forward`: "pallas" records with the fused GPU kernel, "xla" with the
+    wavefront recorder (see `recorder`).  `interpret` runs the kernel in
+    the Pallas interpreter.  `remat`: see `replay_pixel_range`.
     """
-    from bevy_raytrace_tpu.kernels.pallas_render import UNROLL, render_pallas
-
-    if backward not in ("kernel", "xla"):
-        raise ValueError(f"unknown backward {backward!r}")
-    if forward not in ("pallas", "sweep"):
-        raise ValueError(f"unknown forward {forward!r}")
-    if unroll is None:
-        unroll = UNROLL
-    if forward == "sweep" and clusters is not None:
-        raise ValueError(
-            "forward='sweep' records in the unpermuted scene order — "
-            "cluster plans do not apply (and are not needed: the dense "
-            "sweep outruns the culled scalar loop)")
-    sphere_perm = None if clusters is None else clusters.perm
-    record_second = config.edge_softness > 0.0
-
-    if grad_spp_chunk:
-        if backward != "kernel":
-            raise ValueError("grad_spp_chunk requires backward='kernel'")
-        if config.samples_per_pixel % grad_spp_chunk:
-            raise ValueError(
-                f"samples_per_pixel={config.samples_per_pixel} must be "
-                f"divisible by grad_spp_chunk={grad_spp_chunk}")
-        return _make_chunked_renderer(
-            config, tile_rows, unroll, clusters, interpret,
-            record_second, sphere_perm, grad_spp_chunk)
-    if forward == "sweep":
-        from bevy_raytrace_tpu.kernels.sweep_record import render_sweep_record
-
-        fwd_kernel = functools.partial(
-            render_sweep_record, record_second=record_second,
-            interpret=interpret)
-    else:
-        fwd_kernel = functools.partial(
-            render_pallas, tile_rows=tile_rows, unroll=unroll,
-            clusters=clusters, with_residuals=True,
-            record_second=record_second, interpret=interpret)
+    record = recorder(config, forward, interpret)
+    num_pixels = config.num_pixels
+    shape = (config.height, config.width, 3)
 
     @jax.custom_vjp
     def render_fast(scene, camera, frame):
-        img, *_ = fwd_kernel(scene, camera, config, frame)
-        return img
+        return record(scene, camera, frame, 0, num_pixels)[0].reshape(shape)
 
     def fwd(scene, camera, frame):
-        img, res, *rest = fwd_kernel(scene, camera, config, frame)
+        img, res, *rest = record(scene, camera, frame, 0, num_pixels)
         res2 = rest[0] if rest else None
-        return img, (scene, camera, frame, res, res2)
-
-    def bwd_xla(saved, g):
-        scene, camera, frame, res, res2 = saved
-        _, vjp = jax.vjp(
-            lambda sc, cam: replay_image(
-                sc, cam, config, res, frame, sphere_perm, remat=remat,
-                res2=res2),
-            scene, camera)
-        d_scene, d_camera = vjp(g)
-        return d_scene, d_camera, _zero_cotangent(frame)
-
-    def bwd_kernel(saved, g):
-        from bevy_raytrace_tpu.kernels.replay_grad import replay_grad
-
-        scene, camera, frame, res, res2 = saved
-        tbl, tbl_vjp = jax.vjp(
-            lambda sc: _permuted_table(sc, sphere_perm), scene)
-        d_tbl, d_cam = replay_grad(tbl, camera, config, res, g, frame,
-                                   interpret=interpret, res2=res2)
-        (d_scene,) = tbl_vjp(d_tbl)
-        return (d_scene, _camera_cotangent(camera, d_cam),
-                _zero_cotangent(frame))
-
-    render_fast.defvjp(fwd, bwd_kernel if backward == "kernel" else bwd_xla)
-    return render_fast
-
-
-def _make_chunked_renderer(config, tile_rows, unroll, clusters, interpret,
-                           record_second, sphere_perm, chunk):
-    """Fast renderer with spp-chunked residual recording (see
-    make_fast_renderer's grad_spp_chunk)."""
-    import dataclasses
-
-    from bevy_raytrace_tpu.kernels.pallas_render import render_pallas
-    from bevy_raytrace_tpu.kernels.replay_grad import replay_grad
-
-    spp = config.samples_per_pixel
-    n_chunks = spp // chunk
-    cfg_chunk = dataclasses.replace(config, samples_per_pixel=chunk,
-                                    spp_chunk=1)
-    plain_fwd = functools.partial(
-        render_pallas, tile_rows=tile_rows, unroll=unroll,
-        clusters=clusters, interpret=interpret)
-    chunk_fwd = functools.partial(
-        render_pallas, tile_rows=tile_rows, unroll=unroll,
-        clusters=clusters, with_residuals=True,
-        record_second=record_second, interpret=interpret)
-
-    @jax.custom_vjp
-    def render_fast(scene, camera, frame):
-        return plain_fwd(scene, camera, config, frame)
-
-    def fwd(scene, camera, frame):
-        # Value only — no residual checkpoint is kept; the backward
-        # re-renders each sample chunk on demand.
-        return plain_fwd(scene, camera, config, frame), (scene, camera,
-                                                         frame)
+        return img.reshape(shape), (scene, camera, frame, res, res2)
 
     def bwd(saved, g):
-        scene, camera, frame = saved
-        tbl, tbl_vjp = jax.vjp(
-            lambda sc: _permuted_table(sc, sphere_perm), scene)
-        # img = sum_c (chunk/spp) * img_c, and replay_grad folds 1/chunk:
-        # scale g so each chunk contributes 1/spp per path.
-        g_scaled = g * np.float32(chunk / spp)
-        d_tbl = d_cam = None
-        for c in range(n_chunks):
-            _, res, *rest = chunk_fwd(scene, camera, cfg_chunk, frame,
-                                      sample_base=c * chunk)
-            res2 = rest[0] if rest else None
-            dt, dc = replay_grad(tbl, camera, cfg_chunk, res, g_scaled,
-                                 frame, interpret=interpret, res2=res2,
-                                 sample_base=c * chunk)
-            d_tbl = dt if d_tbl is None else d_tbl + dt
-            d_cam = dc if d_cam is None else d_cam + dc
-        (d_scene,) = tbl_vjp(d_tbl)
-        return (d_scene, _camera_cotangent(camera, d_cam),
-                _zero_cotangent(frame))
+        scene, camera, frame, res, res2 = saved
+        _, vjp = jax.vjp(
+            lambda sc, cam: replay_image(sc, cam, config, res, frame,
+                                         remat=remat, res2=res2),
+            scene, camera)
+        d_scene, d_camera = vjp(g)
+        return d_scene, d_camera, zero_cotangent(frame)
 
     render_fast.defvjp(fwd, bwd)
     return render_fast

@@ -2,7 +2,7 @@
 
 The reference never persists an image — output exists only as a live
 window texture (`src/ray_trace_output.rs:65-77`; SURVEY.md §5 "images are
-never even written to disk").  Headless TPU rendering makes writeback a
+never even written to disk").  Headless rendering makes writeback a
 first-class feature: PNG/PPM for display (gamma-2 per RTiOW write_color),
 EXR for linear HDR.
 
@@ -139,7 +139,7 @@ def assemble_tiles(tiles, starts, num_pixels: int) -> np.ndarray:
 
     The multi-host IO path: each host materializes only its own pixel
     stripes (addressable shards) and rank 0 assembles them for writing —
-    the TPU analog of the reference's single resident framebuffer texture
+    the headless analog of the reference's single resident framebuffer texture
     (`src/ray_trace_output.rs:49-61`).  `tiles` is a list of [n_i, 3]
     float32 arrays, `starts` their absolute pixel offsets.  Uses the
     native `brt_assemble_tiles` (csrc/brt_native.cpp) when available,
@@ -150,7 +150,7 @@ def assemble_tiles(tiles, starts, num_pixels: int) -> np.ndarray:
     # Validate every stripe BEFORE dispatch: the native path is a raw
     # memcpy loop, so an inconsistent stripe would be an out-of-bounds
     # heap write there (and a shape-mismatch ValueError in numpy) —
-    # identical error either way (ADVICE r2).
+    # identical error either way.
     if len(tiles) != len(starts):
         raise ValueError(
             f"{len(tiles)} tiles but {len(starts)} starts")

@@ -2,8 +2,8 @@
 
 The reference never persists frames: its output lives as a GPU texture
 presented by the sprite pass (`src/ray_trace_output.rs:65-77`), so its
-frame loop never blocks on IO.  A headless TPU renderer writes every
-frame to disk; doing that synchronously stalls the chip for the
+frame loop never blocks on IO.  A headless renderer writes every
+frame to disk; doing that synchronously stalls the device for the
 tone-map + encode + write time of each frame.  `FrameWriter` restores
 the overlap: `submit()` copies the frame and returns immediately, a
 native C++ worker pool (csrc/brt_native.cpp: brt_writer_*) tone-maps,
@@ -64,8 +64,7 @@ class FrameWriter:
         (.png / .ppm / .exr, same dispatch as `write_image`).
 
         uint8 frames are already gamma-2 tone-mapped (the device-side
-        tone-map path: a renderer on a remote/disaggregated accelerator
-        should ship 3 bytes/pixel over the interconnect, not 12 — see
+        tone-map path ships 3 bytes/pixel from the device, not 12 — see
         cli animate); they are encoded as-is.  EXR needs linear float.
         """
         ext = os.path.splitext(path)[1].lower()

@@ -1,4 +1,3 @@
-from bevy_raytrace_tpu.kernels.pallas_render import render_pallas
-from bevy_raytrace_tpu.kernels.clusters import ClusterPlan, cluster_scene
+from bevy_raytrace_tpu.kernels.trace_gpu import render_pallas
 
-__all__ = ["render_pallas", "cluster_scene", "ClusterPlan"]
+__all__ = ["render_pallas"]

@@ -6,7 +6,7 @@ Registers a frozen dataclass as a JAX pytree via
 leaves.  This is the struct layer that replaces the reference's hand-packed
 GPU-layout structs (`CameraGPU`, `RayGPU`, `SphereGPU`, `MaterialGPU`, ... —
 reference `src/ray_trace_camera.rs:14-25`, `src/ray_trace_rays.rs:11-19`,
-`src/sphere.rs:12-17`, `src/ray_trace_materials.rs:33-43`): on TPU there is
+`src/sphere.rs:12-17`, `src/ray_trace_materials.rs:33-43`): in JAX there is
 no std430 layout to maintain, a pytree of arrays is the native currency of
 jit/pjit/grad.
 """

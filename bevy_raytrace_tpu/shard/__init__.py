@@ -1,7 +1,6 @@
 from bevy_raytrace_tpu.shard.mesh import make_mesh, initialize_multihost
 from bevy_raytrace_tpu.shard.render_sharded import (
     render_sharded,
-    render_mxu_sharded,
     make_sharded_renderer,
 )
 
@@ -9,6 +8,5 @@ __all__ = [
     "make_mesh",
     "initialize_multihost",
     "render_sharded",
-    "render_mxu_sharded",
     "make_sharded_renderer",
 ]

@@ -1,17 +1,18 @@
 """Device-mesh construction and multi-host bring-up.
 
 The reference is single-process / single-GPU with zero inter-device
-communication (SURVEY.md §2.3); the TPU-native framework's parallelism axis
-is *ray/tile data parallelism*: the pixel wavefront shards over every chip
-of a (possibly multi-host) mesh, the scene (the "model") is replicated —
+communication (SURVEY.md §2.3); here the parallelism axis is *ray/pixel
+data parallelism*: the pixel wavefront shards over every device of a
+(possibly multi-host) mesh, the scene (the "model") is replicated —
 spheres and materials are a few KB — and gradients of replicated scene
-parameters psum over ICI (handled by shard_map's transpose; see
+parameters psum over the mesh (handled by shard_map's transpose; see
 shard/render_sharded.py).
 
-Mesh convention: axes ("hosts", "chips"), pixels sharded over BOTH axes
-flattened (each device owns one contiguous pixel stripe).  On one host the
-"hosts" axis has size 1; the same program runs unchanged on a multi-host
-pod slice after `initialize_multihost()`.
+Mesh convention: axes ("hosts", "chips"), process-major, pixels sharded
+over BOTH axes flattened (each device owns one contiguous pixel stripe).
+On one host the "hosts" axis has size 1 (four cards: a (1, 4) mesh); the
+same program runs unchanged across processes after
+`initialize_multihost()`.
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ def make_mesh(devices=None, hosts: int | None = None) -> Mesh:
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None):
-    """Bring up jax.distributed for a multi-host pod slice.
+    """Bring up jax.distributed for a multi-process mesh.
 
-    On TPU pods the arguments are discovered from the environment; pass
-    them explicitly for manual clusters.  Safe to call once per process
+    Pass the coordinator address ("host:port"), process count and this
+    process's id explicitly.  Safe to call once per process
     before any jax computation.  (The reference has no distributed
     runtime at all — SURVEY.md §5 'communication backend: none'.)
     """

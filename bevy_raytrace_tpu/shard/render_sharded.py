@@ -12,10 +12,9 @@ gives it exactly; every pixel then gets the same samples as in the
 single-device render, so resharding is bit-exact (tested).
 
 Differentiation: scene/camera enter replicated (spec P()); shard_map's
-transpose inserts the psum over the mesh for their cotangents — that is
-the gradient all-reduce over ICI demanded by BASELINE, placed by the
-partitioner so XLA's latency-hiding scheduler can overlap it with the
-backward bounce sweep.
+transpose inserts the psum over the mesh for their cotangents — the
+gradient all-reduce, placed by the partitioner so XLA's scheduler can
+overlap it with the backward bounce sweep.
 """
 
 from __future__ import annotations
@@ -23,23 +22,36 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from bevy_raytrace_tpu.config import RenderConfig
+from bevy_raytrace_tpu.shard.mesh import RAY_AXES
 from bevy_raytrace_tpu.wavefront.render import render_pixel_range
 
-RAY_AXES = ("hosts", "chips")
+
+def mesh_rank():
+    """Flattened device rank inside shard_map (hosts-major)."""
+    return (jax.lax.axis_index(RAY_AXES[0]) * jax.lax.axis_size(RAY_AXES[1])
+            + jax.lax.axis_index(RAY_AXES[1]))
 
 
-def render_sharded(scene, camera, config: RenderConfig, mesh: Mesh, frame=0):
+def render_sharded(scene, camera, config: RenderConfig, mesh: Mesh, frame=0,
+                   backend: str = "xla", interpret: bool = False):
     """Render with pixels sharded over every device of `mesh`.
+
+    `backend`: "xla" renders each stripe with the wavefront, "pallas" with
+    the fused GPU kernel's stripe mode (`interpret` runs it in the Pallas
+    interpreter).  Either way the stripes compose into the single-device
+    image of that backend.
 
     Returns the [H, W, 3] image, row-sharded over the mesh (host-local
     shards stay on their devices; materialize with np.asarray / jax.device_get
     only when writing the image out).
     """
+    if backend not in ("xla", "pallas"):
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'xla' or 'pallas'")
     n_devices = mesh.devices.size
     num_pixels = config.num_pixels
     if num_pixels % n_devices != 0:
@@ -56,100 +68,14 @@ def render_sharded(scene, camera, config: RenderConfig, mesh: Mesh, frame=0):
         check_vma=False,  # scene/camera cotangents still psum (tested)
     )
     def shard_fn(scene, camera):
-        # Flattened device rank = hosts-major order over the mesh axes.
-        rank = (
-            jax.lax.axis_index(RAY_AXES[0]) * jax.lax.axis_size(RAY_AXES[1])
-            + jax.lax.axis_index(RAY_AXES[1])
-        )
-        start = (rank * local).astype("uint32")
+        start = (mesh_rank() * local).astype("uint32")
+        if backend == "pallas":
+            from bevy_raytrace_tpu.kernels.trace_gpu import render_pallas
+
+            return render_pallas(scene, camera, config, frame,
+                                 interpret=interpret, pixel_base=start,
+                                 num_local=local)
         return render_pixel_range(scene, camera, config, start, local, frame)
-
-    fb = shard_fn(scene, camera)  # [num_pixels, 3], sharded
-    return fb.reshape(config.height, config.width, 3)
-
-
-def render_mxu_sharded(
-    scene,
-    camera,
-    config: RenderConfig,
-    mesh: Mesh,
-    frame=0,
-    balance: bool = False,
-    probe_spp: int = 1,
-    interpret: bool = False,
-):
-    """The fused v3 MXU kernel under shard_map: each device runs the
-    whole-trace Pallas program on its contiguous pixel stripe.
-
-    This is the multi-chip form of the reference's single dispatch sized
-    to the whole ray queue (`src/ray_trace_node.rs:37-38`): the RNG keys
-    on absolute pixel ids, so the sharded image is bit-identical to the
-    single-device kernel for any mesh shape (tested).
-
-    `balance=True` runs a `probe_spp`-sample probe per device and sorts
-    that device's OWN pixels by measured path length before the full
-    render — the cost balancing stays device-local, so it adds zero
-    cross-device traffic and composes with any mesh shape.
-    """
-    from bevy_raytrace_tpu.kernels.mxu_render import (
-        TILE_ROWS,
-        V_PLANES,
-        lane_pad,
-        render_mxu_lanes,
-    )
-
-    n_devices = mesh.devices.size
-    num_pixels = config.num_pixels
-    if num_pixels % n_devices != 0:
-        raise ValueError(
-            f"num_pixels={num_pixels} must divide over {n_devices} devices"
-        )
-    local = num_pixels // n_devices
-    if config.max_depth <= 0:
-        return jnp.zeros((config.height, config.width, 3), jnp.float32)
-    # Same clamp lane_pad applies: a device's stripe must not pad past
-    # its own pixel count under deep tiles.
-    v_planes = max(1, min(V_PLANES, local // (TILE_ROWS * 128)))
-    p_pad = lane_pad(local)
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(RAY_AXES),
-        check_vma=False,
-    )
-    def shard_fn(scene, camera):
-        rank = (
-            jax.lax.axis_index(RAY_AXES[0]) * jax.lax.axis_size(RAY_AXES[1])
-            + jax.lax.axis_index(RAY_AXES[1])
-        )
-        start = (rank * local).astype(jnp.int32)
-        local_ids = jnp.arange(p_pad, dtype=jnp.int32)
-
-        def run(cfg, pids):
-            fb, ln = render_mxu_lanes(
-                scene, camera, cfg, (start + pids).reshape(p_pad // 128, 128),
-                frame, interpret=interpret, v_planes=v_planes)
-            return fb, ln
-
-        if balance:
-            import dataclasses
-
-            probe_cfg = dataclasses.replace(
-                config, samples_per_pixel=probe_spp, spp_chunk=0)
-            _, ln = run(probe_cfg, local_ids)
-            # Padding lanes sort to the front/back harmlessly (their ids
-            # are >= local and are dropped by the scatter below).
-            order = jnp.argsort(ln[:local]).astype(jnp.int32)
-            order = jnp.concatenate(
-                [order, jnp.arange(local, p_pad, dtype=jnp.int32)])
-        else:
-            order = local_ids
-
-        fb, _ = run(config, order)
-        out = jnp.zeros((local, 3), jnp.float32)
-        return out.at[order[:local]].set(fb[:local])
 
     fb = shard_fn(scene, camera)  # [num_pixels, 3], sharded
     return fb.reshape(config.height, config.width, 3)

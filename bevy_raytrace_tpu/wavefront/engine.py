@@ -3,7 +3,7 @@
 The reference drives frames through a render-graph node with a
 Loading -> Ready state machine gated on async pipeline compilation
 (`src/ray_trace_node.rs:173-193`) and re-uploads scene/camera buffers
-every frame (`src/sphere.rs:180-197`).  The TPU analog: `Renderer` holds
+every frame (`src/sphere.rs:180-197`).  Here `Renderer` holds
 the jitted step (compilation happens on `warmup()` or the first frame —
 the Loading phase), auto-advances the frame counter (RNG decorrelation,
 like the reference's `frame` bump in `ray_trace_globals.rs:56-68`), and
@@ -12,6 +12,8 @@ accepts a new scene/camera pytree every frame for free.
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from typing import Optional
 
@@ -21,198 +23,52 @@ from bevy_raytrace_tpu.config import RenderConfig
 from bevy_raytrace_tpu.utils.metrics import FrameTimer
 
 
+BACKENDS = ("xla", "pallas", "sharded")
+
+
 class Renderer:
     """A reusable render session.
 
     Args:
       config: static render configuration.
-      backend: "xla" (differentiable reference path), "mxu" (the fast
-        fused TPU kernel with cost-balanced scheduling, forward-only),
-        "pallas" (the v1 fused kernel, cluster-culled), "sharded"
-        (pixels over a device mesh, xla wavefront per stripe), or
-        "mxu-sharded" (the v3 kernel per device stripe — config 5).
-      mesh: required for backend="sharded".
-      cluster_size: pallas-backend traversal granularity (0 disables
-        culling; must be a multiple of the kernel unroll).
-      replan_interval: mxu backend only.  0 (default) keeps the
-        cost-map permutation until `replan()` is called; N > 0 re-probes
-        automatically every N frames, so balanced scheduling tracks
-        camera/scene motion without manual replans (VERDICT r4 item 4:
-        the perm decays silently — correctness unaffected, throughput
-        only — under motion).  A probe frame costs one extra
-        low-spp pass + an argsort (~a few % of a frame), so N=8-16
-        keeps animate's steady state within a few % of freshly-probed
-        while bounding decay; `cli animate` defaults to 8.
+      backend: "xla" (the differentiable wavefront), "pallas" (the fused
+        GPU trace kernel, forward-only), or "sharded" (pixels over a
+        device mesh, the wavefront per stripe).
+      mesh: the mesh for backend="sharded" (default: all devices).
+      interpret: run the pallas backend in the Pallas interpreter (CPU
+        tests); never chosen implicitly.
     """
 
     def __init__(self, config: RenderConfig, backend: str = "xla", mesh=None,
-                 cluster_size: int = 12, interpret: bool = False,
-                 replan_interval: int = 0):
+                 interpret: bool = False):
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}; valid backends: "
+                f"{', '.join(BACKENDS)}")
         self.config = config
         self.backend = backend
-        self.interpret = interpret  # Pallas interpreter mode (CPU CI)
+        self.interpret = interpret
         self.frame = 0
         self.ready = False
-        self.cluster_size = cluster_size
-        self.replan_interval = replan_interval
-        self._frames_on_perm = 0
         self._compile_time: Optional[float] = None
-        import threading
-
         self._warmup_lock = threading.Lock()
+        self._extra = (config,)
 
         if backend == "xla":
             from bevy_raytrace_tpu.wavefront.render import render
 
             self._step = jax.jit(render, static_argnums=2)
-            self._extra = (config,)
-        elif backend == "mxu":
-            import functools
-
-            from bevy_raytrace_tpu.kernels.mxu_render import (
-                balance_perm,
-                render_mxu_with_len,
-            )
-
-            # Temporal cost-map reuse: frame 0 runs a cheap identity-
-            # layout probe (whose samples COUNT, like render_mxu_balanced
-            # with probe_reuse), sorts pixels by the measured cost map,
-            # renders the remaining samples balanced, and caches the
-            # permutation; later frames render full-spp straight onto the
-            # cached perm — no probe at all.  Every frame's image is
-            # bit-exact to the unbalanced kernel (the perm only changes
-            # lane assignment); the perm is a pure throughput knob that
-            # decays gracefully under scene/camera motion — call
-            # `replan()` after large motion to re-probe.  The mxu analog
-            # of the reference reusing its buffers across frames
-            # (`src/ray_trace_rays.rs:44-70`).
-            self._perm = None
-            self._perm_pixels = None  # resolution the cached perm is for
-            self._probe = jax.jit(
-                functools.partial(render_mxu_with_len, interpret=interpret),
-                static_argnums=2)
-            # sample_base is a kernel-builder constant (folded into the
-            # RNG counters), so it must be static, not traced.
-            self._permed = jax.jit(
-                functools.partial(render_mxu_with_len, interpret=interpret,
-                                  track_len=False),
-                static_argnums=2, static_argnames=("sample_base",))
-            self._balance_perm = jax.jit(balance_perm)
-
-            def step(scene, camera, config, frame):
-                import dataclasses
-
-                # A perm is only valid for the resolution it was probed
-                # at; a config change re-probes instead of erroring
-                # inside render_mxu_with_len (ADVICE r3).
-                if self._perm_pixels != config.num_pixels:
-                    self._perm = None
-                # Motion-robustness: an aged perm re-probes (r5).
-                if (self.replan_interval > 0 and self._perm is not None
-                        and self._frames_on_perm >= self.replan_interval):
-                    self._perm = None
-                if self._perm is not None:
-                    self._frames_on_perm += 1
-                    img, _ = self._permed(scene, camera, config, frame,
-                                          perm=self._perm)
-                    return img
-                probe_spp = min(16, config.samples_per_pixel)
-                probe_cfg = dataclasses.replace(
-                    config, samples_per_pixel=probe_spp, spp_chunk=0)
-                probe_img, len_map = self._probe(scene, camera, probe_cfg,
-                                                 frame)
-                self._perm = self._balance_perm(len_map)
-                self._perm_pixels = config.num_pixels
-                self._frames_on_perm = 1
-                rest = config.samples_per_pixel - probe_spp
-                if rest == 0:
-                    return probe_img
-                rest_cfg = dataclasses.replace(
-                    config, samples_per_pixel=rest, spp_chunk=0)
-                rest_img, _ = self._permed(
-                    scene, camera, rest_cfg, frame, perm=self._perm,
-                    sample_base=probe_spp)
-                w = 1.0 / config.samples_per_pixel
-                return probe_img * (w * probe_spp) + rest_img * (w * rest)
-
-            self._step = step
-            self._extra = (config,)
         elif backend == "pallas":
-            import functools
+            from bevy_raytrace_tpu.kernels.trace_gpu import render_pallas
 
-            from bevy_raytrace_tpu.kernels import cluster_scene, render_pallas
-
-            # Cluster-culled traversal plan, built lazily from the first
-            # concrete scene with each sphere count (membership is
-            # static; bounds are recomputed from live geometry inside the
-            # kernel, so per-frame sphere edits — the reference's live
-            # re-upload path, `src/sphere.rs:180-197` — render correctly
-            # with NO replanning, no recompile, and no per-frame
-            # device-to-host transfer).  The jitted fn caches on
-            # (count, cluster_size) only (ADVICE r2: a content hash here
-            # forced a D2H fetch + hash of all centers every frame and
-            # recompiled on any motion); sessions whose sphere motion
-            # leaves the Morton cluster bounds loose can call `replan()`
-            # to rebuild membership from the current scene.
-            self._fns = {}  # (count, cluster_size) -> jitted fn
-
-            def step(scene, camera, config, frame):
-                key = (scene.count, self.cluster_size)
-                fn = self._fns.get(key)
-                if fn is None:
-                    plan = (cluster_scene(
-                        scene, cluster_size=self.cluster_size)
-                        if self.cluster_size and scene.count >= 32
-                        else None)
-                    fn = jax.jit(
-                        functools.partial(render_pallas, clusters=plan,
-                                          interpret=self.interpret),
-                        static_argnums=2,
-                    )
-                    if len(self._fns) >= 8:
-                        self._fns.pop(next(iter(self._fns)))
-                    self._fns[key] = fn
-                return fn(scene, camera, config, frame)
-
-            self._step = step
-            self._extra = (config,)
-        elif backend in ("sharded", "mxu-sharded"):
-            if mesh is None:
-                from bevy_raytrace_tpu.shard import make_mesh
-
-                mesh = make_mesh()
-            if backend == "mxu-sharded":
-                # The config-5 composition: the fused v3 kernel per
-                # device stripe under shard_map (bit-identical across
-                # mesh shapes, tests/test_mxu.py) — previously reachable
-                # only through the CLI, not the session API.
-                import functools
-
-                from bevy_raytrace_tpu.shard import render_mxu_sharded
-
-                self._step = jax.jit(
-                    functools.partial(render_mxu_sharded,
-                                      interpret=interpret),
-                    static_argnums=(2, 3))
-            else:
-                from bevy_raytrace_tpu.shard import render_sharded
-
-                self._step = jax.jit(render_sharded, static_argnums=(2, 3))
-            self._extra = (config, mesh)
+            self._step = jax.jit(
+                functools.partial(render_pallas, interpret=interpret),
+                static_argnums=2)
         else:
-            raise ValueError(f"unknown backend {backend!r}")
+            from bevy_raytrace_tpu.shard import make_mesh, render_sharded
 
-    def replan(self):
-        """Drop cached scheduling state: the pallas backend's traversal
-        plans, and the mxu backend's cached cost-map permutation.  The
-        next frame rebuilds them from the current scene.  Use after
-        large sphere/camera motion (results are always correct either
-        way; this is a performance knob)."""
-        if hasattr(self, "_fns"):
-            self._fns.clear()
-        if hasattr(self, "_perm"):
-            self._perm = None
-            self._perm_pixels = None
+            self._step = jax.jit(render_sharded, static_argnums=(2, 3))
+            self._extra = (config, make_mesh() if mesh is None else mesh)
 
     def warmup(self, scene, camera):
         """Compile (the reference's Loading phase); returns compile seconds."""
@@ -235,12 +91,11 @@ class Renderer:
         waits on the same jit cache instead of recompiling).
 
         The compile runs on a DAEMON thread (an early interpreter exit
-        must not block on a minutes-long remote compile), and repeated
+        must not block on a minutes-long compile), and repeated
         calls while one is pending return the same future rather than
         racing two compilations (the pending-check and assignment are
-        under a lock — ADVICE r4)."""
+        under a lock)."""
         import concurrent.futures
-        import threading
 
         with self._warmup_lock:
             pending = getattr(self, "_warmup_future", None)

@@ -83,7 +83,7 @@ static void png_chunk(std::vector<uint8_t>& out, const char* tag,
 }
 
 // --------------------------------------------- deflate (fixed Huffman)
-// Real compression (VERDICT r4 hygiene): Sub-filtered scanlines +
+// Real compression: Sub-filtered scanlines +
 // greedy LZ77 + the FIXED Huffman code of RFC 1951 3.2.6 — still
 // dependency-free (no zlib).  Smooth regions (sky gradients, contact-
 // sheet gutters) collapse under Sub+LZ77; pure noise costs at most
@@ -380,8 +380,8 @@ void brt_assemble_tiles(const float* const* tiles, const int64_t* starts,
 // so the caller may reuse it) and continues; workers tone-map + encode +
 // write in the background.  This is the runtime piece the reference gets
 // for free from its GPU presentation path (the image never leaves the
-// GPU, `src/ray_trace_output.rs:65-77`); a headless TPU renderer must
-// pipeline writeback explicitly or stall the chip between frames.
+// GPU, `src/ray_trace_output.rs:65-77`); a headless renderer must
+// pipeline writeback explicitly or stall the device between frames.
 
 }  // extern "C"
 

@@ -3,6 +3,7 @@ mirroring `intersect.wgsl:94-143` behavior (SURVEY.md §4 item 1)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from bevy_raytrace_tpu.core.geometry import intersect_scene
 from bevy_raytrace_tpu.core.types import Ray, make_scene
@@ -128,10 +129,10 @@ def test_batched_rays():
 
 
 def test_gather_rows_transpose_matches_scatter_add():
-    """gather_rows' one-hot-matmul VJP (3 exact bf16 limbs) must produce
-    the same table cotangents as the native scatter-add transpose up to
-    f32 summation order (a plain f32 dot at default TPU matmul precision
-    would instead round every cotangent to bf16)."""
+    """gather_rows' transpose is XLA's scatter-add: it must equal the VJP
+    of plain indexing.  On the GPU the scatter-add runs as atomics, whose
+    f32 summation order varies from run to run; the tolerance is that
+    order's (~110 unit-scale contributions per row)."""
     import jax
     import jax.numpy as jnp
 
@@ -142,47 +143,31 @@ def test_gather_rows_transpose_matches_scatter_add():
     idx = jnp.asarray(rng.integers(0, 37, size=4096), jnp.int32)
     w = jnp.asarray(rng.standard_normal((4096, 11)), jnp.float32)
 
-    g_fused = jax.grad(lambda t: jnp.sum(gather_rows(t, idx) * w))(tbl)
-    g_ref = jax.grad(lambda t: jnp.sum(t[idx] * w))(tbl)
-    # Products are exact; only the f32 SUM order differs between the
-    # matmul reduction tree and the scatter-add (measured ~8e-6 abs on
-    # ~110 unit-scale contributions/row).  A bf16-rounded transpose (the
-    # bug this guards against) errs at ~4e-3 relative — 3 orders larger.
-    np.testing.assert_allclose(np.asarray(g_fused), np.asarray(g_ref),
+    g_rows = jax.vjp(lambda t: gather_rows(t, idx), tbl)[1](w)[0]
+    g_ref = jax.vjp(lambda t: t[idx], tbl)[1](w)[0]
+    ref64 = np.zeros((37, 11))
+    np.add.at(ref64, np.asarray(idx), np.asarray(w, np.float64))
+    np.testing.assert_allclose(np.asarray(g_rows), np.asarray(g_ref),
                                rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(np.asarray(g_rows), ref64, rtol=3e-5,
+                               atol=3e-5)
 
 
-def test_gather_rows_chunked_transpose_matches_unchunked():
-    """The one-hot transpose's chunk budget (BRT_ONEHOT_CHUNK_MB /
-    set_onehot_chunk_mb, r5 config hook) changes only the f32 summation
-    grouping: cotangents must match the unchunked result to tolerance,
-    and the hook must validate its argument."""
-    import jax
-    import pytest as _pytest
+@pytest.mark.parametrize("n_rays,n_spheres", [(64, 5), (257, 486)])
+def test_dot_planes_are_true_f32(n_rays, n_spheres):
+    """The intersection's [R, N] inner-product planes are full f32 (a
+    TF32 product would be off by ~1e-3 relative), at the RTiOW scene's
+    magnitudes: unit directions, origins and centers up to ~1000."""
+    from bevy_raytrace_tpu.core.geometry import dot_planes
 
-    from bevy_raytrace_tpu.core import geometry
-    from bevy_raytrace_tpu.core.geometry import gather_rows, set_onehot_chunk_mb
-
-    rng = np.random.default_rng(3)
-    tbl = jnp.asarray(rng.normal(size=(13, 11)).astype(np.float32))
-    idx = jnp.asarray(rng.integers(0, 13, size=4096).astype(np.int32))
-    w = jnp.asarray(rng.normal(size=(4096, 11)).astype(np.float32))
-
-    def g():
-        return jax.grad(lambda t: jnp.sum(gather_rows(t, idx) * w))(tbl)
-
-    saved = geometry._ONEHOT_ELEMS
-    try:
-        g_big = np.asarray(g())
-        geometry._ONEHOT_ELEMS = 13 * 128  # force many chunks
-        g_small = np.asarray(g())
-    finally:
-        geometry._ONEHOT_ELEMS = saved
-    # chunking only regroups the f32 accumulation
-    np.testing.assert_allclose(g_small, g_big, rtol=1e-5, atol=1e-5)
-
-    set_onehot_chunk_mb(64)
-    assert geometry._ONEHOT_ELEMS == 64 * 1024 * 1024 // 2
-    geometry._ONEHOT_ELEMS = saved
-    with _pytest.raises(ValueError, match="positive"):
-        set_onehot_chunk_mb(0)
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((n_rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = rng.uniform(-15, 15, (n_rays, 3))
+    c = rng.uniform(-1000, 1000, (n_spheres, 3))
+    d_c, o_c = dot_planes(*(jnp.asarray(x, jnp.float32) for x in (d, o, c)))
+    assert d_c.shape == o_c.shape == (n_rays, n_spheres)
+    for got, ref in ((d_c, d @ c.T), (o_c, o @ c.T)):
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(np.asarray(got), ref, rtol=0,
+                                   atol=2e-6 * scale)

@@ -1,4 +1,4 @@
-"""Real 2-process jax.distributed test (VERDICT r1 weak item 5).
+"""Real 2-process jax.distributed test.
 
 `initialize_multihost` (shard/mesh.py) was previously untested plumbing;
 here two OS processes each bring up the distributed runtime with 2
@@ -31,6 +31,7 @@ def test_two_process_distributed_render_bitexact():
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # worker sets its own device count
+    env["JAX_PLATFORMS"] = "cpu"  # never the card: the parent may hold it
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     procs = [
         subprocess.Popen(
@@ -52,14 +53,14 @@ def test_two_process_distributed_render_bitexact():
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {pid} failed:\n{out}"
         assert "OK bit-exact" in out, f"proc {pid} output:\n{out}"
-        # VERDICT r3 item 6: the collective audit must hold on the REAL
+        # The collective audit must hold on the REAL
         # 2-process mesh too — zero forward collectives, KB-scale
         # backward all-reduce.
         assert "AUDIT ok fwd_collectives=0" in out, (
             f"proc {pid} output:\n{out}")
-        # VERDICT r4 item 5: a gradient step must actually RUN across
+        # A gradient step must actually RUN across
         # the 2 processes (finite, psum-consistent cotangents) — both
-        # the XLA wavefront step and the sharded fast (Pallas
-        # record+replay) step.
+        # the XLA wavefront step and the sharded fast (kernel record +
+        # XLA replay) step.
         assert "GRADRUN ok" in out, f"proc {pid} output:\n{out}"
         assert "FASTGRAD ok" in out, f"proc {pid} output:\n{out}"

@@ -109,8 +109,8 @@ def test_ray_chunk_nondividing_shard_picks_closest_divisor():
     sharded caller hands render_pixel_range a slice; a slice size the
     chunk does not divide must pick the divisor with the closest work
     ratio and warn — not silently materialize the full [rays, spheres]
-    workspace (VERDICT r3 weak #6) and not degenerate to ray_chunk=1
-    for awkward sizes (ADVICE r4)."""
+    workspace and not degenerate to ray_chunk=1
+    for awkward sizes."""
     from bevy_raytrace_tpu.wavefront.render import render_pixel_range
 
     scene, _ = baseline_config1_scene()

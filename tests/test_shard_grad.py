@@ -1,16 +1,15 @@
 """Sharded fast gradients (inverse/shard_grad.py) on the virtual 8-device
 CPU mesh.
 
-Contracts (VERDICT r4 item 2):
+Contracts:
   1. the sharded forward image is bit-identical to the single-device
-     recording kernel's (RNG keys on absolute pixel ids via the traced
+     recording forward's (RNG keys on absolute pixel ids via the traced
      pixel_base operand);
-  2. scene + camera cotangents from the per-stripe replay-gradient
-     kernels, psum'd by shard_map's transpose, match the single-device
-     fast path to f32 summation-order tolerance — at more than one mesh
-     shape;
-  3. the composition holds with a ClusterPlan (permuted residual order)
-     and with edge_softness (runner-up residuals recorded per stripe).
+  2. scene + camera cotangents from the per-stripe replays, psum'd over
+     the mesh, match the single-device fast path to f32 summation-order
+     tolerance — at more than one mesh shape;
+  3. the composition holds for the wavefront recorder and with
+     edge_softness (runner-up residuals recorded per stripe).
 """
 
 import dataclasses
@@ -25,7 +24,6 @@ from bevy_raytrace_tpu.inverse import (
     make_fast_renderer,
     make_fast_renderer_sharded,
 )
-from bevy_raytrace_tpu.kernels import cluster_scene
 from bevy_raytrace_tpu.scenes import (
     baseline_config2_camera,
     baseline_config2_scene,
@@ -57,14 +55,12 @@ def _loss_grads(render_fn, scene, camera, cfg):
                                           scene.materials.albedo)
 
 
-def _check_mesh_shape(hosts, chips, cfg=CFG, clusters_size=0):
+def _check_mesh_shape(hosts, chips, cfg=CFG, forward="pallas"):
     scene, _ = baseline_config2_scene()
     cam = baseline_config2_camera(cfg.aspect)
-    plan = (cluster_scene(scene, cluster_size=clusters_size)
-            if clusters_size else None)
     mesh = _mesh(hosts, chips)
-    single = make_fast_renderer(cfg, clusters=plan, interpret=True)
-    sharded = make_fast_renderer_sharded(cfg, mesh, clusters=plan,
+    single = make_fast_renderer(cfg, forward=forward, interpret=True)
+    sharded = make_fast_renderer_sharded(cfg, mesh, forward=forward,
                                          interpret=True)
 
     img_1 = np.asarray(single(scene, cam, 1))
@@ -90,9 +86,9 @@ def test_sharded_fast_grad_other_mesh_shape():
     _check_mesh_shape(4, 2)
 
 
-def test_sharded_fast_grad_clustered():
-    """Cluster-permuted residuals record and replay per stripe."""
-    _check_mesh_shape(2, 4, clusters_size=6)
+def test_sharded_fast_grad_xla_recorder():
+    """The wavefront recorder records and replays per stripe too."""
+    _check_mesh_shape(2, 4, forward="xla")
 
 
 def test_sharded_fast_grad_edge_softness():

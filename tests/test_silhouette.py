@@ -122,7 +122,7 @@ def test_edge_softness_zero_off_silhouette_unbiased():
 
 
 def test_silhouette_gradient_against_metal_occluder():
-    """Edge over a METAL sphere (VERDICT r4 item 6): the `albedo2 * sky`
+    """Edge over a METAL sphere: the `albedo2 * sky`
     background estimate is roughest on non-Lambertian backgrounds; for
     metal it remains a usable proxy because a mirror over this scene
     mostly reflects sky.  Measured 2026-08-21: polished g_ad -0.068 vs
@@ -147,7 +147,7 @@ def test_silhouette_gradient_against_metal_occluder():
 
 def test_silhouette_gradient_against_dielectric_occluder_known_bias():
     """Edge over a DIELECTRIC sphere: the boundary estimate's DOCUMENTED
-    failure mode (VERDICT r4 item 6).  A glass runner-up stores albedo
+    failure mode.  A glass runner-up stores albedo
     (1,1,1), so `albedo2 * sky` degenerates to the sky — but the true
     revealed radiance is the darker REFRACTED scene behind the glass
     (here: the gray ground), which one recorded bounce cannot see.
